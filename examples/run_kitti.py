@@ -56,7 +56,7 @@ def main(argv=None):
     cfg = SystemConfig(
         caps=MapCaps(K=512, L=32768, F=1024, O=8),
         run_data_dir=os.path.join(args.out, "run_data"),
-        # async: the TPU-native production driver (PROFILE_r05.md);
+        # async: the production driver (device-resident tracking loop);
         # pipelined: the reference's 4-thread topology over native queues
         pipelined=args.mode == "pipelined",
         async_tracking=args.mode == "async",
@@ -180,4 +180,7 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    from hyslam_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     raise SystemExit(main())

@@ -4,7 +4,7 @@
 Design (SURVEY.md §7.1): KeyFrames and landmarks live in fixed-capacity
 arrays with integer ids + validity masks; "bad"/"replaced"/"protected"
 become mask/indirection columns; the covisibility graph is a dense [K, K]
-weight matrix recomputed by one MXU matmul; associations are stored on both
+weight matrix recomputed by one matmul; associations are stored on both
 sides (kf.lm_id per feature slot, lm obs list) by pure functional updates.
 """
 

@@ -480,10 +480,10 @@ def incidence_matrix(ms: MapState) -> jnp.ndarray:
 
 @jax.jit
 def refresh_covisibility(ms: MapState) -> MapState:
-    """Recompute the full covisibility weight matrix with one MXU matmul:
+    """Recompute the full covisibility weight matrix with one matmul:
     covis = I @ I^T over the association incidence. Replaces the reference's
-    incremental symmetric edge bookkeeping (CovisibilityGraph.cc) — at arena
-    scale a full recompute is cheaper than scattered updates on TPU."""
+    incremental symmetric edge bookkeeping (CovisibilityGraph.cc) with one
+    dense product over the whole arena instead of scattered updates."""
     I = incidence_matrix(ms).astype(jnp.bfloat16)
     lm_ok = (ms.lm.valid & ~ms.lm.bad).astype(jnp.bfloat16)
     I = I * lm_ok[None, :]

@@ -5,7 +5,7 @@ Capability parity with src/core/SensorData.h:17-94 — GPS position
 orientation quaternion from an AHRS IMU, and a scalar depth (pressure)
 reading, each with a validity flag.
 
-TPU-native design: instead of a per-KeyFrame member object, sensor readings
+array-native design: instead of a per-KeyFrame member object, sensor readings
 live in a SoA arena aligned 1:1 with the KeyFrame arena slots, so bundle
 adjustment gathers them as arrays and turns them into batched unary pose
 residuals (hyslam_tpu.solver.priors; reference behavior in

@@ -1,2 +1,2 @@
 """Geometric estimators: batched RANSAC solvers (two-view H/F, EPnP, Sim3)
-— the TPU-native src/estimators (SURVEY.md §2.6)."""
+— the array-native src/estimators (SURVEY.md §2.6)."""

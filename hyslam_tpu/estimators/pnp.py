@@ -1,7 +1,7 @@
 """PnP-RANSAC: absolute pose from 3D-2D correspondences.
 
 Replaces src/estimators/PnPsolver.{h,cc} (EPnP inside RANSAC, used by
-relocalization, TrackPlaceRecognition.cpp). TPU-native formulation: all
+relocalization, TrackPlaceRecognition.cpp). array-native formulation: all
 RANSAC hypotheses evaluate as ONE batched tensor program — minimal sets of
 6 points solved by normalized DLT (batched 12x12 eigh) with orthonormality
 projection and cheirality disambiguation, scored by chi2 reprojection.

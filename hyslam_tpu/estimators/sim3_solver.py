@@ -46,7 +46,7 @@ def sim3_ransac(
     # all padded slots makes a clean triple exponentially unlikely at
     # realistic match fractions ((30 valid / 512 slots)^3 * 128 hypotheses
     # ~= 0.03 valid triples: loop-closure Sim3 RANSAC found 0 inliers on
-    # the TPU longrun while the reference's Sim3Solver samples from its
+    # an earlier long run while the reference's Sim3Solver samples from its
     # match list, Sim3Solver.h:33-55). Same fix as estimators/pnp.py.
     logits = jnp.where(valid, 0.0, -jnp.inf)
     idx = jax.random.categorical(

@@ -5,7 +5,7 @@ reference scores homography and fundamental models in parallel RANSAC
 threads and selects by RH = SH/(SH+SF) at 0.40 (MonoEstimator.cpp:126-132);
 here every hypothesis is one row of a batched tensor program (hypothesis
 generation = batched eigh, scoring = one [S, M] matrix op — the RANSAC
-shape that actually fits the TPU).
+shape that fits an accelerator).
 
 Motion recovery:
 - F-branch: essential-matrix decomposition with cheirality arbitration over

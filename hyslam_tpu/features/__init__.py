@@ -1,2 +1,2 @@
 """Feature system: extraction pipeline, matching engine, vocabulary/BoW —
-the TPU-native src/features (SURVEY.md §2.5)."""
+the array-native src/features (SURVEY.md §2.5)."""

@@ -3,8 +3,8 @@ ONE canvas.
 
 The per-level extractor (features/extractor.py) runs the FAST/NMS/blur/
 orientation/descriptor chain once per level (x2 images for stereo) —
-hundreds of device kernels per frame, which is dispatch-latency-bound on
-proxied TPU runtimes. Here the 8 pyramid levels are placed side by side in
+hundreds of device kernels per frame, so launch latency bounds it. Here
+the 8 pyramid levels are placed side by side in
 a single [H0, sum(Wl)] canvas (zero-padded below each level), so every
 dense stage runs ONCE; only the per-level grid top-k selection (a handful
 of reshapes + top_k each) iterates. Keypoint metadata (level id, canvas
@@ -133,8 +133,8 @@ def _extract_atlas_hw(img: jnp.ndarray, cfg: ExtractorConfig, capacity: int,
     valid = jnp.concatenate(valids)
 
     # orientation + descriptors in ONE batch over all levels (canvas
-    # coords): fused patch path — vmapped dynamic_slice windows + MXU
-    # steering matmuls; the blur is applied per patch, so no full-canvas
+    # coords): fused patch path — vmapped dynamic_slice windows + steering
+    # matmuls; the blur is applied per patch, so no full-canvas
     # blur pass is needed (ops/orb.orient_and_describe)
     ang, desc = orient_and_describe(canvas, uv_canvas)
 

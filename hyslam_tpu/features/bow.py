@@ -11,8 +11,8 @@ FeatureVocabulary.h + PlaceRecognizer src/core/PlaceRecognizer.{h,cc}):
 - scoring = dense L1 BoW similarity (DBoW2 L1 score
   s = 1 - 0.5*|a - b|_1 on L1-normalized tf-idf vectors) against the
   keyframe BoW matrix — one matmul-class op instead of an inverted file
-  (the inverted index is a CPU pruning structure; dense wins at arena
-  scale on TPU, SURVEY.md §7.1).
+  (the inverted index is a CPU pruning structure; the dense form keeps
+  the arena's fixed shapes, SURVEY.md §7.1).
 """
 
 from __future__ import annotations

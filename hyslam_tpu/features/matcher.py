@@ -1,5 +1,5 @@
 """The matching engine: every FeatureMatcher entry point as dense masked
-MXU ops.
+matmul ops.
 
 Replaces src/features/FeatureMatcher.{h,cc} + MatchCriteria.{h,cc}. The
 reference's architecture — candidate harvesting via a keypoint grid, then a
@@ -246,8 +246,8 @@ def match_descriptors(
 ):
     """Generic descriptor matching A -> B with ratio + rotation tests — the
     SearchByBoW analog (FeatureMatcher.cc:216,281). The reference restricts
-    candidates to shared BoW nodes purely as a CPU pruning; dense MXU
-    distance beats gather-pruning on TPU, criteria are identical.
+    candidates to shared BoW nodes purely as a CPU pruning; here the dense
+    distance matrix replaces gather-pruning, criteria are identical.
 
     Returns ([A] index into B or -1, count)."""
     ok_ab = valid_a[:, None] & valid_b[None, :]

@@ -10,7 +10,7 @@ fast startup, bin_vocabulary.cc:48-56). The DBoW2 text format is
     parent_id is_leaf b0 b1 ... b31 weight      (one line per non-root node)
 
 with node ids implicit in line order (root = 0). This loads that tree into
-the TPU-native array layout (features.bow.Vocabulary: packed u32 centers,
+the array-native array layout (features.bow.Vocabulary: packed u32 centers,
 children table, leaf word ids) and saves/loads it as npz.
 
 Usage:

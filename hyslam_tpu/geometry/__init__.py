@@ -1,7 +1,7 @@
 """Geometry core: SO(3)/SE(3)/Sim(3) Lie groups, camera models, closed-form
 alignment and triangulation.
 
-This is the TPU-native replacement for the reference's scattered pose math
+This is the array-native replacement for the reference's scattered pose math
 (cv::Mat 4x4 composition in src/core, g2o SE3Quat/Sim3 in Thirdparty/g2o,
 `util/Converter.h` conversions, `optimizers/OptHelpers.h` Horn alignment).
 Everything is batched, differentiable jnp operating on float32 arrays:

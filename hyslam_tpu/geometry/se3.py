@@ -90,7 +90,7 @@ def adjoint(T: jnp.ndarray) -> jnp.ndarray:
 def interpolate(T0: jnp.ndarray, T1: jnp.ndarray, alpha) -> jnp.ndarray:
     """Geodesic interpolation: T(alpha) = exp(alpha * log(T1 T0^-1)) T0.
 
-    This is the TPU-native equivalent of the reference Trajectory's
+    This is the array-native equivalent of the reference Trajectory's
     `poseAtTime` interpolation (src/core/Trajectory.cc:195) used to place the
     imaging camera between stereo frames.
     """

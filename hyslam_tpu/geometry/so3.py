@@ -3,7 +3,7 @@
 Replaces the reference's quaternion/matrix conversions (`util/Converter.h`,
 g2o `se3quat.h`) with jnp ops safe under jit/vmap: all small-angle and
 near-pi cases are handled with Taylor fallbacks selected by `jnp.where`
-(never python branches), so the same code runs on TPU for any batch shape.
+(never python branches), so the same code runs on the device for any batch shape.
 
 Quaternions are stored (w, x, y, z), Hamilton convention, unit norm.
 """

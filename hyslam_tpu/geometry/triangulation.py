@@ -32,7 +32,7 @@ def triangulate_dlt(
 
     A = jnp.concatenate([rows(P1, uv1), rows(P2, uv2)], axis=-2)  # [..., 4, 4]
     # Right singular vector of smallest singular value of A == eigenvector of
-    # A^T A with smallest eigenvalue. eigh batches well on TPU.
+    # A^T A with smallest eigenvalue. eigh batches well.
     AtA = jnp.matmul(jnp.swapaxes(A, -1, -2), A, precision=_P)
     _, vecs = jnp.linalg.eigh(AtA)
     X = vecs[..., :, 0]  # eigenvalues ascending -> first column

@@ -11,7 +11,6 @@ from dataclasses import dataclass, field
 from typing import Dict, Optional
 
 import numpy as np
-import yaml
 
 from hyslam_tpu.core.mapstate import MapCaps
 from hyslam_tpu.features.extractor import ExtractorConfig
@@ -110,8 +109,8 @@ class SystemConfig:
                               # zero-host-sync tracking loop: ONE device
                               # program per frame, decisions committed
                               # commit_lag frames later from an async scalar
-                              # fetch (the TPU-native production driver —
-                              # the device command queue IS the pipeline)
+                              # fetch (the production driver — the device
+                              # command queue IS the pipeline)
     commit_lag: int = 2       # decision latency of the async loop (the
                               # reference's tracking queue depth analog)
     run_data_dir: Optional[str] = None  # enables TSV telemetry logs
@@ -130,7 +129,10 @@ def _build(cls, d: dict):
 
 
 def load_config(path: str) -> SystemConfig:
-    """Load a primary YAML config (see config/sample_config.yaml)."""
+    """Load a primary YAML config (see config/sample_config.yaml). PyYAML
+    is imported here, so the System path does not need it."""
+    import yaml
+
     with open(path) as f:
         raw = yaml.safe_load(f)
     tracking_raw = raw.get("tracking") or {}

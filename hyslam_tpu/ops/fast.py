@@ -5,7 +5,7 @@ spatial distribution (ORBExtractor::ComputeKeyPointsOctTree / DistributeOctTree,
 src/features/ORBExtractor.cpp:179-495) with a fully batched formulation:
 
 - corner scores for EVERY pixel in one vectorized pass (16 rolled images,
-  run-length test via packed bit shifts — VPU-friendly, no data-dependent
+  run-length test via packed bit shifts — elementwise, no data-dependent
   control flow),
 - 3x3 non-max suppression,
 - per-grid-cell top-k + global top-N = the spatial spreading the quadtree

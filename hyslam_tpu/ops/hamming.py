@@ -1,16 +1,15 @@
 """Binary descriptor (256-bit ORB) Hamming distances.
 
 Replaces DescriptorDistance (src/features/DescriptorDistance.h:8-35, the
-popcount bit-hack credited in Dependencies.md) with two TPU paths:
+popcount bit-hack credited in Dependencies.md) with two paths:
 
-1. `hamming_pairwise` — XOR + `lax.population_count` on uint32 lanes (VPU),
+1. `hamming_pairwise` — XOR + `lax.population_count` on uint32 words,
    exact, for small/medium candidate sets.
-2. `hamming_matrix` — the MXU path for all-pairs matching: unpack bits to
-   {0,1} bf16 planes and use one matmul:
+2. `hamming_matrix` — the matmul path for all-pairs matching: unpack bits
+   to {0,1} bf16 planes and use one matmul:
       H(a, b) = popcnt(a) + popcnt(b) - 2 * <bits(a), bits(b)>
-   A 256-wide matmul per pair maps straight onto the systolic array and is
-   the speed-of-light way to do the SearchByProjection / BoW / stereo
-   candidate scoring at [Q, F] scale (SURVEY.md §7.1).
+   which turns the SearchByProjection / BoW / stereo candidate scoring at
+   [Q, F] scale into one dense bf16 product (SURVEY.md §7.1).
 
 Descriptors are [..., 8] uint32 (256 bits). Distances are int32 in [0, 256].
 """
@@ -48,7 +47,7 @@ def pack_bits(bits: jnp.ndarray) -> jnp.ndarray:
 
 
 def hamming_matrix(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
-    """All-pairs Hamming distances via the MXU.
+    """All-pairs Hamming distances as one bf16 matmul.
 
     a: [Q, 8]u32, b: [F, 8]u32 -> [Q, F] int32.
 
@@ -64,6 +63,6 @@ def hamming_matrix(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
         bb,
         dimension_numbers=(((1,), (1,)), ((), ())),
         preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.DEFAULT,  # bf16 inputs: MXU fast path
+        precision=jax.lax.Precision.DEFAULT,  # 0/1 bf16 inputs: exact
     )
     return (pa[:, None] + pb[None, :] - 2 * dot.astype(jnp.int32)).astype(jnp.int32)

@@ -3,13 +3,13 @@ binary Haar-response descriptors.
 
 Capability parity with the reference's second feature family
 (src/features/SURFExtractor.cpp / SURFFinder, which wrap OpenCV SURF).
-TPU-native design: SURF's integral-image box filters become cumsum
+array-native design: SURF's integral-image box filters become cumsum
 prefix-sum differences — dense full-map filter responses at four filter
 sizes (9/15/21/27, the standard first octave) evaluated as pure elementwise
 shifts, perfectly fused by XLA. Instead of SURF's float L1 descriptor
 (DescriptorDistance.h SURF = L1), the descriptor binarizes an 8x8 grid of
 upright Haar responses into the same 256-bit format as ORB so the entire
-downstream stack (Hamming MXU matcher, arenas, BoW) is family-agnostic.
+downstream stack (Hamming matmul matcher, arenas, BoW) is family-agnostic.
 """
 
 from __future__ import annotations

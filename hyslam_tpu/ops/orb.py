@@ -49,10 +49,7 @@ PATCH_MASK = _CIRC.reshape(-1)
 def _gather_pixels(img: jnp.ndarray, ys: jnp.ndarray, xs: jnp.ndarray) -> jnp.ndarray:
     """Clamped 2D gather: img [H, W], ys/xs [...] int32 -> [...].
 
-    Linearized to a 1D take on the flattened image: XLA lowers a 1-D
-    gather ~30% faster than the 2-D advanced-indexing form on TPU
-    (measured 8.5 vs 11.6 ms for the 1M-sample orientation patch batch,
-    PROFILE_r05.md)."""
+    Linearized to a 1D take on the flattened image."""
     h, w = img.shape
     ys = jnp.clip(ys, 0, h - 1)
     xs = jnp.clip(xs, 0, w - 1)
@@ -77,13 +74,11 @@ def orientations(img: jnp.ndarray, uv: jnp.ndarray) -> jnp.ndarray:
 # Fused patch path: orientation + steered descriptor without global gathers
 # ---------------------------------------------------------------------------
 #
-# The production extraction path. Per-keypoint global gathers (the
-# orientations/descriptors functions below) cost ~8.5 ns/element on TPU —
-# ~14 ms per image at 1000 keypoints, the dominant extraction cost
-# (PROFILE_r05.md). Here each keypoint's 48x48 neighborhood is cut out with
-# ONE vmapped dynamic_slice (XLA lowers this far better than gather), the
+# The production extraction path. Instead of per-keypoint global gathers
+# (the orientations/descriptors functions below), each keypoint's 48x48
+# neighborhood is cut out with ONE vmapped dynamic_slice, the
 # orientation moments become a single [N,2304]x[2304,2] matmul, and the
-# steered-BRIEF sampling becomes 30 MXU matmuls against constant +/-1
+# steered-BRIEF sampling becomes 30 matmuls against constant +/-1
 # selection matrices — one per 12-degree rotation bin, the same steering
 # quantization OpenCV's ORB uses. The Gaussian blur that the dense path
 # applied to the whole canvas is applied to the patches instead (rolls on

@@ -1,19 +1,19 @@
-"""Pallas pose-optimization kernel: the ENTIRE LM schedule in one launch.
+"""Pose-only LM in one GPU kernel (Pallas, Triton route).
 
-The jnp pose optimizer (solver/pose_opt.py) lowers to ~25 kernels per LM
-iteration x 40 iterations; under dispatch-latency-bound regimes that
-dominates the frame time. Here the complete Optimizer::PoseOptimization
-schedule — 4 rounds x 10 LM iterations, Huber weights, chi2 outlier
-reclassification between rounds — runs inside ONE pallas_call with all
-observation data resident in VMEM (~100 KB at N=1024):
+The plain solver (solver/pose_opt.py) lowers each LM iteration to a handful
+of fused kernels plus a 6x6 `linalg.solve`, inside two nested scans: several
+hundred small launches per call, each a reduction over N observations. Here
+the complete Optimizer::PoseOptimization schedule -- 4 rounds x 10 LM
+iterations, Huber weights, chi2 outlier reclassification between rounds --
+runs in ONE program of one thread block:
 
-- residuals/Jacobians are [N]-vector expressions on the VPU,
-- the 6x6 normal equations are 21+6 reductions,
-- the Cholesky solve + SE3 exp update are unrolled scalar arithmetic.
+- residuals and Jacobians are [N]-vector expressions held in registers,
+- the 6x6 normal equations are 21+6 block reductions,
+- the Cholesky solve and the SE(3) update are unrolled scalar arithmetic.
 
-Layout: observation arrays are passed TRANSPOSED ([dim, N]) so the lane
-axis is the 128-multiple N. The pose travels through the loop carry as
-flattened R (9) + t (3) scalars.
+N is padded to a power of two (Triton's block shapes); padded rows repeat
+the last observation with `valid` = 0, so they are finite and carry no
+weight. The pose travels through the loop carry as R (9) + t (3) scalars.
 """
 
 from __future__ import annotations
@@ -24,42 +24,14 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
 from hyslam_tpu.geometry.camera import Camera
 from hyslam_tpu.solver.robust import CHI2_MONO, CHI2_STEREO
 
-
-def _interpret() -> bool:
-    return jax.default_backend() != "tpu"
-
-
-_PALLAS_OK: bool | None = None
-
-
-def pallas_supported() -> bool:
-    """Probe whether this runtime executes pallas kernels (proxied TPU
-    runtimes may report platform 'tpu' but reject Mosaic custom calls)."""
-    global _PALLAS_OK
-    if _PALLAS_OK is None:
-        if _interpret():
-            _PALLAS_OK = True  # interpreter path always works
-        else:
-            try:
-                def k(x_ref, o_ref):
-                    o_ref[:] = x_ref[:] * 2.0
-
-                out = pl.pallas_call(
-                    k,
-                    out_shape=jax.ShapeDtypeStruct((8, 128), jnp.float32),
-                    in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)],
-                    out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
-                )(jnp.ones((8, 128), jnp.float32))
-                jax.block_until_ready(out)
-                _PALLAS_OK = True
-            except Exception:
-                _PALLAS_OK = False
-    return _PALLAS_OK
+# warps of the single block: 8 x 32 threads hold 4 observations each at
+# N=1024, which keeps the 18 Jacobian rows in registers
+NUM_WARPS = 8
 
 
 def _chol6_solve(H, b):
@@ -163,18 +135,27 @@ def _compose(Ra, ta, Rb, tb):
 def _make_kernel(cam: Camera, n_rounds: int, iters_per_round: int):
     fx, fy, cx, cy, bf = cam.fx, cam.fy, cam.cx, cam.cy, cam.bf
 
-    def kernel(T0_ref, X_ref, uv_ref, ur_ref, is2_ref, valid_ref, st_ref,
-               Tout_ref, inl_ref, ninl_ref):
-        X0 = X_ref[0, :]
-        X1 = X_ref[1, :]
-        X2 = X_ref[2, :]
-        u_o = uv_ref[0, :]
-        v_o = uv_ref[1, :]
-        ur_o = ur_ref[0, :]
-        is2 = is2_ref[0, :]
-        valid = valid_ref[0, :]
-        st = st_ref[0, :]
+    def kernel(T0_ref, X0_ref, X1_ref, X2_ref, u_ref, v_ref, ur_ref,
+               is2_ref, valid_ref, st_ref, Tout_ref, c2_ref):
+        X0 = X0_ref[...]
+        X1 = X1_ref[...]
+        X2 = X2_ref[...]
+        u_o = u_ref[...]
+        v_o = v_ref[...]
+        ur_o = ur_ref[...]
+        is2 = is2_ref[...]
+        valid = valid_ref[...]
+        st = st_ref[...]
         th_vec = jnp.where(st > 0, CHI2_STEREO, CHI2_MONO)
+        stm = (st > 0).astype(jnp.float32)
+
+        # the pose enters and leaves as a flat [16] row-major 4x4: scalars
+        # are picked out of (and put back into) the block with iota selects
+        lane = jax.lax.broadcasted_iota(jnp.int32, (16,), 0)
+        T0 = T0_ref[...]
+
+        def pick(k):
+            return jnp.sum(jnp.where(lane == k, T0, 0.0))
 
         def residual_terms(R, t):
             px = R[0] * X0 + R[1] * X1 + R[2] * X2 + t[0]
@@ -190,23 +171,24 @@ def _make_kernel(cam: Camera, n_rounds: int, iters_per_round: int):
             c2 = jnp.where(pz > 0.05, c2, 1e9)
             return px, py, pz, iz, iz2, ru, rv, rr, c2
 
+        def weighted_cost(use_huber, active, ru, rv, rr, c2):
+            hub = jnp.where(
+                use_huber,
+                jnp.where(c2 <= th_vec, 1.0,
+                          jnp.sqrt(th_vec / jnp.maximum(c2, 1e-12))),
+                1.0,
+            )
+            w = is2 * hub * active
+            return w, jnp.sum(w * (ru * ru + rv * rv + rr * rr))
+
         def one_round(ridx, rstate):
-            # fori_loop, not lax.scan: Mosaic has no lowering for scan
-            # extensive inputs/outputs or non-index carries inside kernels
             Rt, active = rstate
-            use_huber = ridx < 2
+            use_huber = ridx < 2   # the reference drops the kernel after 2
 
             def lm_iter(_i, istate):
                 (R, t), lam, _ = istate
                 px, py, pz, iz, iz2, ru, rv, rr, c2 = residual_terms(R, t)
-                hub = jnp.where(
-                    use_huber,
-                    jnp.where(c2 <= th_vec, 1.0,
-                              jnp.sqrt(th_vec / jnp.maximum(c2, 1e-12))),
-                    1.0,
-                )
-                w = is2 * hub * active
-                cost = jnp.sum(w * (ru * ru + rv * rv + rr * rr))
+                w, cost = weighted_cost(use_huber, active, ru, rv, rr, c2)
 
                 # Jacobian rows (d resid / d (omega, upsilon)):
                 # J_u = fx*iz*dpx - fx*px*iz2*dpz ; dp/ddelta = [-hat(p)|I]
@@ -217,21 +199,12 @@ def _make_kernel(cam: Camera, n_rounds: int, iters_per_round: int):
                 av = fy * iz
                 bu = fx * px * iz2
                 bv = fy * py * iz2
-                Ju = [
-                    -bu * py, au * pz + bu * px, -au * py, au,
-                    jnp.zeros_like(au), -bu,
-                ]
-                Jv = [
-                    -av * pz - bv * py, bv * px, av * px,
-                    jnp.zeros_like(av), av, -bv,
-                ]
+                zero = jnp.zeros_like(au)
+                Ju = [-bu * py, au * pz + bu * px, -au * py, au, zero, -bu]
+                Jv = [-av * pz - bv * py, bv * px, av * px, zero, av, -bv]
                 br = (fx * px - bf) * iz2
-                Jr = [
-                    -br * py, au * pz + br * px, -au * py, au,
-                    jnp.zeros_like(au), -br,
-                ]
-                stm = (st > 0).astype(w.dtype)
-                Jr = [j * stm for j in Jr]
+                Jr = [j * stm for j in
+                      (-br * py, au * pz + br * px, -au * py, au, zero, -br)]
 
                 # normal equations (upper triangle) + gradient
                 H = [[None] * 6 for _ in range(6)]
@@ -249,20 +222,14 @@ def _make_kernel(cam: Camera, n_rounds: int, iters_per_round: int):
                     H[i][i] = H[i][i] + lam * jnp.maximum(H[i][i], 1e-6)
 
                 dx = _chol6_solve(H, g)
-                finite = jnp.bool_(True)
-                for d in dx:
+                finite = jnp.isfinite(dx[0])
+                for d in dx[1:]:
                     finite = finite & jnp.isfinite(d)
                 Rd, td = _se3_exp_scalars(dx)
                 Rn, tn = _compose(Rd, td, R, t)
                 _, _, _, _, _, ru2, rv2, rr2, c22 = residual_terms(Rn, tn)
-                hub2 = jnp.where(
-                    use_huber,
-                    jnp.where(c22 <= th_vec, 1.0,
-                              jnp.sqrt(th_vec / jnp.maximum(c22, 1e-12))),
-                    1.0,
-                )
-                w2 = is2 * hub2 * active
-                cost2 = jnp.sum(w2 * (ru2 * ru2 + rv2 * rv2 + rr2 * rr2))
+                _, cost2 = weighted_cost(use_huber, active, ru2, rv2, rr2,
+                                         c22)
                 accept = (cost2 < cost) & finite
                 R_out = [jnp.where(accept, Rn[i], R[i]) for i in range(9)]
                 t_out = [jnp.where(accept, tn[i], t[i]) for i in range(3)]
@@ -277,32 +244,33 @@ def _make_kernel(cam: Camera, n_rounds: int, iters_per_round: int):
                 0, iters_per_round, lm_iter, init
             )
             R, t = Rt
-            _, _, _, _, _, _, _, _, c2 = residual_terms(R, t)
+            c2 = residual_terms(R, t)[-1]
             active_next = (valid > 0) & (c2 <= th_vec)
-            return (Rt, active_next.astype(active.dtype))
+            return (Rt, active_next.astype(jnp.float32))
 
-        R0 = [T0_ref[i, j] for i in range(3) for j in range(3)]
-        t0 = [T0_ref[i, 3] for i in range(3)]
-        ((R, t), active) = jax.lax.fori_loop(
+        R0 = [pick(4 * i + j) for i in range(3) for j in range(3)]
+        t0 = [pick(4 * i + 3) for i in range(3)]
+        ((R, t), _) = jax.lax.fori_loop(
             0, n_rounds, one_round, ((R0, t0), valid)
         )
-        _, _, _, _, _, _, _, _, c2 = residual_terms(R, t)
-        inliers = (valid > 0) & (c2 <= th_vec)
-        inl_ref[0, :] = inliers.astype(jnp.float32)
-        ninl_ref[0, 0] = jnp.sum(inliers.astype(jnp.float32))
-        for i in range(3):
-            for j in range(3):
-                Tout_ref[i, j] = R[3 * i + j]
-            Tout_ref[i, 3] = t[i]
-        Tout_ref[3, 0] = 0.0
-        Tout_ref[3, 1] = 0.0
-        Tout_ref[3, 2] = 0.0
-        Tout_ref[3, 3] = 1.0
+        c2_ref[...] = residual_terms(R, t)[-1]
+        flat = {4 * i + j: R[3 * i + j] for i in range(3) for j in range(3)}
+        flat.update({4 * i + 3: t[i] for i in range(3)})
+        out = jnp.where(lane == 15, 1.0, 0.0)
+        for k, val in flat.items():
+            out = jnp.where(lane == k, val, out)
+        Tout_ref[...] = out
 
     return kernel
 
 
-@partial(jax.jit, static_argnames=("cam", "n_rounds", "iters_per_round"))
+def padded_size(n: int) -> int:
+    """Block length for n observations: the next power of two (>= 16)."""
+    return max(16, 1 << (int(n) - 1).bit_length())
+
+
+@partial(jax.jit, static_argnames=("cam", "n_rounds", "iters_per_round",
+                                   "interpret"))
 def pose_optimization_pallas(
     cam: Camera,
     Tcw0: jnp.ndarray,
@@ -314,42 +282,39 @@ def pose_optimization_pallas(
     stereo: jnp.ndarray,     # [N] bool
     n_rounds: int = 4,
     iters_per_round: int = 10,
+    interpret: bool = False,
 ):
-    """Drop-in single-launch replacement for solver.pose_opt.
-    Returns (Tcw [4,4], inliers [N] bool, num_inliers scalar).
+    """The whole pose-LM schedule in one kernel launch.
 
-    Falls back to the XLA pose optimizer when the runtime cannot execute
-    pallas kernels (probed once per process)."""
-    if not pallas_supported():
-        from hyslam_tpu.solver.pose_opt import pose_optimization
-
-        res = pose_optimization(cam, Tcw0, X, uv, ur, inv_sigma2, valid,
-                                stereo)
-        return res.Tcw, res.inliers, res.num_inliers
+    Returns (Tcw [4,4], chi2 [N]) -- chi2 of every row at the final pose,
+    1e9 behind the camera, as solver.pose_opt computes it. `interpret`
+    runs the kernel through the Pallas interpreter (CPU tests only)."""
     N = X.shape[0]
-    kernel = _make_kernel(cam, n_rounds, iters_per_round)
-    Tout, inl, ninl = pl.pallas_call(
-        kernel,
-        out_shape=(
-            jax.ShapeDtypeStruct((4, 4), jnp.float32),
-            jax.ShapeDtypeStruct((1, N), jnp.float32),
-            jax.ShapeDtypeStruct((1, 1), jnp.float32),
-        ),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)]
-        + [pl.BlockSpec(memory_space=pltpu.VMEM)] * 6,
-        out_specs=(
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-        ),
-        interpret=_interpret(),
-    )(
-        Tcw0.astype(jnp.float32),
-        X.T.astype(jnp.float32),
-        uv.T.astype(jnp.float32),
-        ur[None, :].astype(jnp.float32),
-        inv_sigma2[None, :].astype(jnp.float32),
-        valid[None, :].astype(jnp.float32),
-        stereo[None, :].astype(jnp.float32),
+    Np = padded_size(N)
+
+    def col(a, fill_valid=False):
+        a = a.astype(jnp.float32)
+        if Np == N:
+            return a
+        if fill_valid:   # padded rows carry no weight
+            return jnp.pad(a, (0, Np - N))
+        return jnp.pad(a, (0, Np - N), mode="edge")
+
+    operands = (
+        Tcw0.astype(jnp.float32).reshape(16),
+        col(X[:, 0]), col(X[:, 1]), col(X[:, 2]),
+        col(uv[:, 0]), col(uv[:, 1]), col(ur), col(inv_sigma2),
+        col(valid, fill_valid=True), col(stereo),
     )
-    return Tout, inl[0] > 0.5, ninl[0, 0].astype(jnp.int32)
+    Tout, c2 = pl.pallas_call(
+        _make_kernel(cam, n_rounds, iters_per_round),
+        out_shape=(
+            jax.ShapeDtypeStruct((16,), jnp.float32),
+            jax.ShapeDtypeStruct((Np,), jnp.float32),
+        ),
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(num_warps=NUM_WARPS),
+        interpret=interpret,
+        name="pose_lm",
+    )(*operands)
+    return Tout.reshape(4, 4), c2[:N]

@@ -23,12 +23,9 @@ def gaussian_kernel_1d(ksize: int = 7, sigma: float = 2.0) -> jnp.ndarray:
 def gaussian_blur(img: jnp.ndarray, ksize: int = 7, sigma: float = 2.0) -> jnp.ndarray:
     """Separable Gaussian blur, replicate-padded borders. img: [H, W] f32.
 
-    Implemented as shifted multiply-adds instead of conv_general_dilated:
-    a 1-channel convolution cannot use the MXU and XLA's fallback lowering
-    for [1,1,H,W] convs is catastrophically slow on TPU (measured 85 ms
-    for the 720x5894 atlas canvas — 80% of the whole extraction budget);
-    the 2*ksize shifted adds fuse into a couple of VPU passes instead
-    (~1 ms, PROFILE_r05.md)."""
+    Implemented as shifted multiply-adds instead of a 1-channel
+    conv_general_dilated: the 2*ksize shifted adds fuse into a couple of
+    elementwise passes."""
     import numpy as _np
 
     x0 = _np.arange(ksize) - (ksize - 1) / 2.0

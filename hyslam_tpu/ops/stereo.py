@@ -2,7 +2,7 @@
 
 Replaces Stereomatcher (src/features/Stereomatcher.{h,cpp}): the row-bucket
 LUT + per-keypoint candidate loop becomes one dense masked Hamming matrix
-on the MXU (left features x right features), with row-band, disparity-range,
+as a matmul (left features x right features), with row-band, disparity-range,
 level-compatibility and distance-threshold gates, followed by a left->right
 argmin. Fills ur/depth like the reference fills mvuRight/mvDepth.
 """
@@ -90,10 +90,8 @@ def refine_subpixel(
     side = 2 * _SAD_R + 1                                # 11
     wide = side + 2 * _SEARCH                            # 19: all 9 shifts
 
-    # per-keypoint windows via vmapped dynamic_slice (XLA lowers this far
-    # better than gather — the previous take-based form cost ~10.6 ms,
-    # PROFILE_r05.md); pad by the window radius so starts never clamp the
-    # window off-center
+    # per-keypoint windows via vmapped dynamic_slice; pad by the window
+    # radius so starts never clamp the window off-center
     pad_y, pad_xl, pad_xr = _SAD_R, _SAD_R, _SAD_R + _SEARCH
     il_p = jnp.pad(img_l, ((pad_y, pad_y), (pad_xl, pad_xl)), mode="edge")
     ir_p = jnp.pad(img_r, ((pad_y, pad_y), (pad_xr, pad_xr)), mode="edge")

@@ -4,7 +4,7 @@ The multi-host scale-out of the BA solver (BASELINE.json north star):
 keyframe poses are replicated (small), the landmark axis of the observation
 blocks is sharded over the mesh 'lm' axis. Each device linearizes its
 landmark slice, contributes partial (Hpp, b_pose, S_red, b_red) which are
-reduced with psum over ICI, the dense reduced camera system is solved
+reduced with psum across the devices, the dense reduced camera system is solved
 replicated, and landmark back-substitution stays shard-local. One LM
 iteration is therefore: local einsums + one psum of a [6K, 6K] + [K, 6]
 pair + replicated Cholesky-class solve — the communication volume is
@@ -126,7 +126,7 @@ def distributed_bundle_adjustment(
                 b_pose = b_pose + b_pr
             if solver == "cg":
                 # matrix-free distributed PCG: Y stays shard-local; each
-                # S-product psums a [K,6] over ICI
+                # S-product psums a [K,6] across the devices
                 b_red = _reduced_rhs(Y, yv, kf_idx, K)
                 delta_pose = _solve_poses_cg(
                     Hpp, b_pose, b_red, Y, kf_idx, pl.kf_fixed, lam,
@@ -272,13 +272,24 @@ def distributed_bundle_adjustment_2d(
         my_kf = jax.lax.axis_index("kf")
         col0 = my_kf * Kb
 
+        def lm_sum(x):
+            """Sum over landmark shards, bitwise identical on every device.
+            The kf rows hold copies of the same landmark shard, but a GPU
+            scatter-add (atomics) can leave the copies' partials different
+            in the last bits; summed over 'lm' alone, the rows would then
+            disagree, and the CG loop, whose trip count follows these
+            values, would issue a different number of collectives per row
+            and deadlock. Row 0 contributes, the other rows add zero."""
+            return jax.lax.psum(jnp.where(my_kf == 0, x, jnp.zeros_like(x)),
+                                ("kf", "lm"))
+
         # priors are replicated pose-only blocks: keep them out of the
         # shard-local cost/linearization and add them once post-reduction
         pl_noprior = pl._replace(priors=None)
 
         def cost_of(kf_Tcw, lm_pos):
             local = _robust_cost(pl_noprior, kf_Tcw, lm_pos, huber)
-            total = jax.lax.psum(local, "lm")  # kf rows replicate the shard
+            total = lm_sum(local)
             if pl.priors is not None:
                 total = total + prior_cost(kf_Tcw, pl.priors)
             return total
@@ -288,15 +299,15 @@ def distributed_bundle_adjustment_2d(
             Hpp, b_pose, Y, yv, Vinv, Wlo, b_lm, kf_idx = _linearize_factors(
                 pl_noprior, kf_Tcw, lm_pos, lam, obs_active, huber
             )
-            Hpp = jax.lax.psum(Hpp, "lm")
-            b_pose = jax.lax.psum(b_pose, "lm")
+            Hpp = lm_sum(Hpp)
+            b_pose = lm_sum(b_pose)
             Hab = None
             if pl.priors is not None:
                 Hd_pr, b_pr, Hab = linearize_priors_blocks(kf_Tcw, pl.priors)
                 Hpp = Hpp + Hd_pr
                 b_pose = b_pose + b_pr
             S_cb, b_red = _schur_cols(Y, yv, kf_idx, K, Kb, col0, chunk)
-            b_red = jax.lax.psum(b_red, "lm")
+            b_red = lm_sum(b_red)
 
             dtype = Hpp.dtype
             Hpp_d = Hpp + lam * jnp.eye(6, dtype=dtype) * jnp.maximum(
@@ -318,7 +329,7 @@ def distributed_bundle_adjustment_2d(
                                                    x * fm, K)
                 return out * fm + x * (1.0 - fm)
 
-            D = Hpp_d - jax.lax.psum(_reduced_diag(Y, kf_idx, K), "lm")
+            D = Hpp_d - lm_sum(_reduced_diag(Y, kf_idx, K))
             D = jnp.where(free[:, None, None], D, jnp.eye(6, dtype=dtype))
             Dinv = jnp.linalg.inv(D)
 

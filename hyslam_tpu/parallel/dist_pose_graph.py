@@ -6,7 +6,7 @@ OptimizeEssentialGraph analog) scales with the edge count (spanning tree +
 strong covisibility + loop edges ~ O(K) to O(K^2) edges at loop-closure
 time). Here the EDGE axis is sharded over the mesh: every device holds the
 replicated [K, 8] pose vector, linearizes its slice of edges, and the dense
-[7K, 7K] + [7K] normal equations are reduced with psum over ICI before a
+[7K, 7K] + [7K] normal equations are reduced with psum across devices before a
 replicated solve. Communication per LM iteration is O(K^2) independent of
 the edge count — the same reduce-then-solve shape as parallel.dist_ba.
 """
@@ -101,7 +101,7 @@ def distributed_pose_graph(
             H = H.at[ej, ei].add(jnp.swapaxes(Hij, -1, -2))
             b = jnp.zeros((K, 7), gv.dtype).at[ei].add(bi).at[ej].add(bj)
 
-            # THE collective: reduce shard-local normal equations over ICI
+            # THE collective: reduce shard-local normal equations
             H = jax.lax.psum(H, axis)
             b = jax.lax.psum(b, axis)
 

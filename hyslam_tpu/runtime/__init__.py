@@ -1,2 +1,2 @@
 """Host runtime: native queue bindings + the threaded pipeline
-(the TPU-native src/main threading topology, SURVEY.md §1)."""
+(the array-native src/main threading topology, SURVEY.md §1)."""

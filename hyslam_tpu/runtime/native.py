@@ -5,24 +5,48 @@ maps handles to Python payloads on this side of the ABI."""
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import itertools
 import os
 import subprocess
 import threading
 
-_NATIVE_DIR = os.path.join(os.path.dirname(__file__), "..", "native")
-_SRC = os.path.join(_NATIVE_DIR, "hyslam_rt.cpp")
-_LIB = os.path.join(_NATIVE_DIR, "libhyslam_rt.so")
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_SRC = os.path.join(_PKG, "native", "hyslam_rt.cpp")
+# git-ignored build directory of the checkout
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "native")
 _lock = threading.Lock()
 _lib = None
 
 
-def _build():
-    subprocess.run(
-        ["g++", "-O2", "-shared", "-fPIC", "-std=c++17", "-o", _LIB, _SRC,
-         "-lpthread"],
-        check=True, capture_output=True,
-    )
+def library_path(src: str = _SRC) -> str:
+    """Where the library built from `src` lives: the file name carries a
+    hash of the source's content, so an edited source builds anew."""
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    return os.path.join(BUILD_DIR, f"libhyslam_rt-{digest}.so")
+
+
+def build(src: str = _SRC) -> str:
+    """Compile `src` unless its library exists; returns the library path.
+    The compiler writes a private temporary file that is renamed into
+    place, so concurrent builders never load a half-written library."""
+    lib = library_path(src)
+    if os.path.exists(lib):
+        return lib
+    os.makedirs(os.path.dirname(lib), exist_ok=True)
+    tmp = f"{lib}.{os.getpid()}.{threading.get_ident()}.tmp"
+    try:
+        subprocess.run(
+            ["g++", "-O2", "-shared", "-fPIC", "-std=c++17", "-o", tmp, src,
+             "-lpthread"],
+            check=True, capture_output=True,
+        )
+        os.replace(tmp, lib)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return lib
 
 
 def load_library() -> ctypes.CDLL:
@@ -30,10 +54,7 @@ def load_library() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        if (not os.path.exists(_LIB)
-                or os.path.getmtime(_LIB) < os.path.getmtime(_SRC)):
-            _build()
-        lib = ctypes.CDLL(_LIB)
+        lib = ctypes.CDLL(build())
         lib.hq_create.restype = ctypes.c_void_p
         lib.hq_create.argtypes = [ctypes.c_size_t]
         lib.hq_push.restype = ctypes.c_int

@@ -15,7 +15,7 @@ Replaces the reference's flagship dual-camera machinery:
   (VertexTrajectoryTime / EdgeTime / EdgeTcam /
   EdgeTrajectoryTimeTransformtoSE3).
 
-TPU-native translation: the trajectory-tie multi-edge becomes an
+array-native translation: the trajectory-tie multi-edge becomes an
 ALTERNATING scheme — (a) reprojection BA over (poses, landmarks) with unary
 SE3 anchor residuals pulling each pose toward Tcam o T_traj(t_i), assembled
 straight into the reduced camera system; (b) a differentiable refit of

@@ -6,9 +6,9 @@ criterion 0.98): walking keyframes in id order, a keyframe is culled when
 more than `overlap_criterion` of the previous kept keyframe's associated
 landmarks are visible (frustum-project) in it.
 
-TPU-native split: the expensive part — "which of KF i's landmarks are
+array-native split: the expensive part — "which of KF i's landmarks are
 visible in KF j" for ALL pairs — is one batched [K,L] projection plus one
-MXU matmul of the association incidence against the visibility matrix; the
+matmul of the association incidence against the visibility matrix; the
 greedy keep/cull walk (inherently sequential, O(K) scalar ops) runs on host.
 """
 

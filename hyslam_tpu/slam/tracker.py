@@ -428,10 +428,9 @@ class Tracker:
 
     # -- async tracking loop --------------------------------------------------
     #
-    # The TPU-native answer to the reference's thread pipeline: on a proxied
-    # runtime every device->host fetch costs a ~23 ms round trip
-    # (PROFILE_r05.md), so the synchronous per-frame state machine caps the
-    # system at ~10 fps no matter how fast the kernels are. track_async
+    # The device-queue answer to the reference's thread pipeline: a
+    # synchronous per-frame state machine waits on a device->host fetch
+    # every frame, so the host and the device never overlap. track_async
     # dispatches ONE fused device program per frame (track_normal_step keeps
     # all tracker state device-resident), starts an async D2H of the packed
     # decision scalars, and commits the host decisions (loss transition,

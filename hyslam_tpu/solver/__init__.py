@@ -1,10 +1,10 @@
-"""Nonlinear least-squares solvers: the TPU-native replacement for the
+"""Nonlinear least-squares solvers: the array-native replacement for the
 reference's g2o Levenberg-Marquardt stack (src/optimizers/*, Thirdparty/g2o).
 
 Design (SURVEY.md §7.1): residuals/Jacobians are batched closed-form jnp;
 map-point marginalization (g2o setMarginalized, BundleAdjustment.cc:221) is a
 dense Schur complement assembled with einsum/segment_sum and solved with a
-Cholesky factorization on the MXU; robust Huber weighting and the reference's
+dense Cholesky factorization; robust Huber weighting and the reference's
 chi2 outlier-demotion schedule are preserved.
 """
 

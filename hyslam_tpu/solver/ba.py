@@ -1,11 +1,11 @@
 """Bundle adjustment with Schur-complement landmark marginalization.
 
-TPU-native replacement for the reference's g2o BA stack
+Array-native replacement for the reference's g2o BA stack
 (src/optimizers/BundleAdjustment.cc, LocalBundleAdjustment.cc,
 GlobalBundleAdjustment.cc): Levenberg-Marquardt over keyframe poses [K] and
 landmark positions [L], with the landmark block eliminated exactly as g2o
 does via `setMarginalized(true)` (BundleAdjustment.cc:221) — but assembled
-as dense MXU-friendly linear algebra instead of sparse CPU factorization:
+as dense matmul-heavy linear algebra instead of sparse CPU factorization:
 
   For each landmark l with (padded) observations o:
     V_l     = sum_o w J_pt^T J_pt + lambda diag      (3x3)
@@ -13,7 +13,7 @@ as dense MXU-friendly linear algebra instead of sparse CPU factorization:
     Y_lo    = W_lo M_l,  M_l M_l^T = V_l^{-1}         (6x3)
   Scatter Y into Z[l, k] (one obs per (l,k) pair at most) and the reduced
   camera system becomes a sequence of rank-3C matmul updates:
-    S  = Hpp_diag - sum_chunks Z_c^T Z_c              ([6K, 6K], MXU)
+    S  = Hpp_diag - sum_chunks Z_c^T Z_c              ([6K, 6K], matmuls)
     b^ = b_pose   - sum_chunks Z_c^T y_c
   solved densely (Cholesky-class) per LM iteration; landmarks back-substitute
   in closed form. Landmark chunking bounds peak memory; chunks shard across
@@ -248,7 +248,7 @@ def _linearize_factors(p: BAProblem, kf_Tcw, lm_pos, lam, obs_active,
 
 
 def _schur_reduce_dense(Y, y, kf_idx, K: int, chunk: int):
-    """Dense Schur reduction over landmark chunks (rank-3C MXU updates).
+    """Dense Schur reduction over landmark chunks (rank-3C matmul updates).
 
     Returns (S_red [6K,6K], b_red [K,6])."""
     L, O = kf_idx.shape

@@ -8,7 +8,7 @@ time; the loop keyframes start from their Sim3-corrected poses.
 
 Residual per edge: r = log(S_ji_meas o S_i o S_j^{-1})  (7-dof), Jacobians
 by forward-mode autodiff over both endpoint tangents. Normal equations are
-either assembled dense over [7K, 7K] (K <= a few hundred -> MXU-friendly
+either assembled dense over [7K, 7K] (K <= a few hundred -> one
 dense Cholesky, same strategy as the BA reduced system) or solved
 matrix-free with block-Jacobi preconditioned CG over edge-block products
 (solver='cg'; memory O(K + E), the K >~ 1k loop-closure path).

@@ -1,4 +1,4 @@
-"""Pose-only optimization: the TPU-native `Optimizer::PoseOptimization`.
+"""Pose-only optimization: `Optimizer::PoseOptimization` as one program.
 
 The reference (src/optimizers/Optimizer.cc:48-280) optimizes a single frame
 pose against its matched landmarks with g2o LM: 4 rounds x 10 iterations,
@@ -25,6 +25,7 @@ import jax.numpy as jnp
 
 from hyslam_tpu.geometry import se3
 from hyslam_tpu.geometry.camera import Camera
+from hyslam_tpu.ops import pose_opt_pallas
 from hyslam_tpu.solver import robust
 from hyslam_tpu.solver.residuals import (
     camera_point,
@@ -152,11 +153,11 @@ def pose_optimization(
     )
 
 
-def _final_chi2(cam, T, X, uv, ur, inv_sigma2, stereo):
-    pc = camera_point(T, X)
-    r = reproj_residual(cam, pc, uv, ur, stereo)
-    c2 = chi2(r, inv_sigma2, stereo)
-    return jnp.where(pc[..., 2] > 0.05, c2, 1e9)
+def use_pose_kernel() -> bool:
+    """Platform rule for the per-frame pose LM: the single-launch Triton
+    kernel (ops/pose_opt_pallas.py) on the GPU, the plain XLA solver on
+    every other backend."""
+    return jax.default_backend() == "gpu"
 
 
 def pose_optimization_fast(
@@ -171,29 +172,22 @@ def pose_optimization_fast(
     n_rounds: int = 4,
     iters_per_round: int = 10,
 ) -> PoseOptResult:
-    """pose_optimization with the single-launch pallas kernel on real TPU
-    hardware (the XLA version lowers to ~25 kernels x 40 LM iterations;
-    the pallas kernel runs the whole schedule in one launch — measured
-    ~1.6x frame-rate on the chained per-frame path). Falls back to the
-    XLA optimizer on CPU/interpret backends, producing identical results
-    up to f32 rounding (tests/test_pose_opt_pallas.py)."""
-    import jax
-
-    from hyslam_tpu.ops.pose_opt_pallas import (
-        pallas_supported,
-        pose_optimization_pallas,
-    )
-
-    if jax.default_backend() == "tpu" and pallas_supported():
-        T, inliers, ninl = pose_optimization_pallas(
+    """pose_optimization for the per-frame tracking path: the whole LM
+    schedule in one kernel launch where `use_pose_kernel()` says so, the
+    plain solver otherwise. Both give the same result up to float32
+    reduction order (tests/test_pose_opt_pallas.py)."""
+    if not use_pose_kernel():
+        return pose_optimization(
             cam, Tcw0, X, uv, ur, inv_sigma2, valid, stereo,
             n_rounds=n_rounds, iters_per_round=iters_per_round,
         )
-        return PoseOptResult(
-            Tcw=T, inliers=inliers, num_inliers=ninl,
-            chi2=_final_chi2(cam, T, X, uv, ur, inv_sigma2, stereo),
-        )
-    return pose_optimization(
+    T, c2 = pose_opt_pallas.pose_optimization_pallas(
         cam, Tcw0, X, uv, ur, inv_sigma2, valid, stereo,
         n_rounds=n_rounds, iters_per_round=iters_per_round,
+    )
+    chi2_th = jnp.where(stereo, robust.CHI2_STEREO, robust.CHI2_MONO)
+    inliers = valid & (c2 <= chi2_th)
+    return PoseOptResult(
+        Tcw=T, inliers=inliers,
+        num_inliers=jnp.sum(inliers.astype(jnp.int32)), chi2=c2,
     )

@@ -20,7 +20,7 @@ EdgeSE3Expmap in types/sba/types_six_dof_expmap.h:108-127):
          M = Tcw_b Tcw_a^-1 at registration (Tse3Parent, Map.h:72-77;
          SetSubMapOriginEdges, BundleAdjustment.cc:182-201).
 
-TPU-native design: all priors of one type are linearized as a single
+array-native design: all priors of one type are linearized as a single
 batched jacfwd over the left-multiplicative se3 tangent (the same
 parameterization as the reprojection Jacobians in solver.ba), producing
 per-pose 6x6 diagonal blocks + a dense off-diagonal block matrix that add

@@ -1,16 +1,16 @@
 """Matmul-precision pinning for the solver stack.
 
-JAX's default matmul precision on TPU runs f32 dot products through
-reduced-precision (bf16-class) MXU passes. That is the right trade for the
-image front-end, but the LM/Schur/pose-graph solvers accumulate normal
-equations and compose pose chains where bf16-class rounding visibly moves
-the optimum (round-3 regression: loop closure stopped reducing ATE on the
-TPU backend while every solver test passed on f32 CPU — VERDICT r3 weak #1).
+JAX's default matmul precision on the GPU runs f32 dot products in TF32
+(10-bit mantissa) on the tensor cores. The LM/Schur/pose-graph solvers
+accumulate normal equations and compose pose chains where that rounding
+visibly moves the optimum (an earlier reduced-precision backend showed it:
+loop closure stopped reducing ATE while every solver test passed on f32
+CPU).
 
 `f32` wraps a solver entry point so everything traced inside it uses full
 float32 matmuls; tiny fixed-size contractions in geometry ops additionally
 pin `precision=HIGHEST` at the call site (free: 3x3/4x4 contractions are
-padding-dominated on the MXU either way).
+far too small for the tensor cores to matter).
 """
 
 from __future__ import annotations

@@ -12,7 +12,7 @@ Capability parity with the reference's observability (SURVEY.md §5):
 - stage timers replacing the reference's ad-hoc std::chrono spans
   (ImageProcessing.cpp:112-114, Tracking.cpp:151-153) with accumulating
   statistics and optional `jax.profiler` trace annotations so spans show up
-  in TPU profiles (the reference's dead NVTX flag, tests/CMakeLists.txt:20,
+  in device profiles (the reference's dead NVTX flag, tests/CMakeLists.txt:20,
   done properly).
 """
 

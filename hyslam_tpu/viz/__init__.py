@@ -2,7 +2,7 @@
 Viewer.h, FrameDrawer.h, MapDrawer.h).
 
 The reference renders into a Pangolin/OpenGL window from a dedicated
-thread; a TPU pod has no display, so this package renders the same
+thread; an accelerator host has no display, so this package renders the same
 artifacts — annotated current-frame images and a 3D map view (points,
 keyframe frusta, covisibility graph, trajectory, current camera) — into
 numpy RGB images written as PNG, either on demand or fps-paced from the

@@ -1,7 +1,7 @@
 """Dependency-free 2D rasterization primitives + PNG writer.
 
 The reference draws with OpenCV/OpenGL (src/viz/FrameDrawer.cc,
-MapDrawer.cc); neither is a TPU-image dependency, so annotation uses
+MapDrawer.cc); neither is a dependency of this package, so annotation uses
 vectorized numpy splats/segments and PNGs are encoded directly with zlib
 (always available in CPython).
 """

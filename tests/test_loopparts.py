@@ -118,8 +118,8 @@ class TestOptimizeSim3:
         """Loop-closure operating point: a 512-slot padded feature table
         with only ~30 valid matched pairs, 40% of them mismatched. RANSAC
         must sample its triples from the valid pairs (uniform sampling over
-        padded slots gives (30/512)^3*128 ~ 0.03 valid hypotheses — the
-        round-4 TPU longrun found 0 inliers) and optimize_sim3 must stay in
+        padded slots gives (30/512)^3*128 ~ 0.03 valid hypotheses — an
+        earlier long run found 0 inliers) and optimize_sim3 must stay in
         the RANSAC basin when seeded (unseeded, the 40% outlier mass pulled
         it off: 24 ransac inliers -> 0 after refinement)."""
         cam = DEFAULT_CAM

@@ -167,3 +167,58 @@ class TestDistributedBACG:
             rot, tr = pose_error(np.asarray(rc.kf_Tcw[k]),
                                  np.asarray(rs.kf_Tcw[k]))
             assert rot < 0.05 and tr < 0.01, (k, rot, tr)
+
+
+_ROWS_WORKER = r'''
+import os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+import jax
+jax.config.update("jax_platforms", "cpu")
+import numpy as np
+sys.path.insert(0, os.getcwd())
+from bench_multihost import build_problem
+from hyslam_tpu.parallel import dist_ba
+from hyslam_tpu.parallel.mesh import make_mesh_2d
+
+prob = build_problem(K=16, L=512, O=4)
+mesh = make_mesh_2d(4, kf=2)
+ref = dist_ba.distributed_bundle_adjustment_2d(prob, mesh, n_iters=3, chunk=64)
+lin, cost = dist_ba._linearize_factors, dist_ba._robust_cost
+
+def lin_rows_differ(*a, **k):
+    out = lin(*a, **k)
+    row = jax.lax.axis_index("kf").astype(out[0].dtype)
+    return (out[0] * (1 + 0.5 * row), out[1] * (1 + 0.5 * row)) + out[2:]
+
+def cost_rows_differ(*a, **k):
+    return cost(*a, **k) + 1e3 * jax.lax.axis_index("kf")
+
+dist_ba._linearize_factors = lin_rows_differ
+dist_ba._robust_cost = cost_rows_differ
+got = dist_ba.distributed_bundle_adjustment_2d(prob, mesh, n_iters=3, chunk=64)
+np.testing.assert_allclose(np.asarray(got.kf_Tcw), np.asarray(ref.kf_Tcw),
+                           atol=1e-6)
+assert float(got.cost) == float(ref.cost)
+print("ROWS_AGREE")
+'''
+
+
+def test_2d_replicated_sums_ignore_row_copies():
+    """The kf rows of the 2-D mesh hold copies of the same landmark shard;
+    on a GPU their partial sums can differ in the last bits (atomic
+    scatter-adds). Every replicated sum (normal equations, gradient, cost)
+    must come out identical on all devices, or the rows' CG loops run
+    different numbers of collectives. Here the copies on kf-row 1 are
+    made to differ grossly; the result must equal the unperturbed one.
+    Runs in its own process on 4 virtual devices, under a time limit, so
+    a deadlock fails the test instead of stalling the suite."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    r = subprocess.run([sys.executable, "-c", _ROWS_WORKER], cwd=repo,
+                       env=env | {"JAX_PLATFORMS": "cpu"},
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0 and "ROWS_AGREE" in r.stdout, r.stderr[-3000:]

@@ -2,6 +2,7 @@
 status flags, and the threaded pipeline producing the same quality of
 trajectory as the synchronous path."""
 
+import os
 import threading
 import time
 
@@ -9,7 +10,44 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
+from hyslam_tpu.runtime import native
 from hyslam_tpu.runtime.native import NativeQueue, ThreadStatus
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+class TestNativeBuild:
+    def test_library_builds_into_ignored_dir(self):
+        """The shared library is compiled from the committed source into
+        <checkout>/build/, which .gitignore lists; nothing binary lives in
+        the package."""
+        native.load_library()
+        lib = native.library_path()
+        assert os.path.exists(lib)
+        assert os.path.dirname(lib) == os.path.join(REPO, "build", "native")
+        with open(os.path.join(REPO, ".gitignore")) as f:
+            assert "build/" in f.read().split()
+        pkg_native = os.path.join(REPO, "hyslam_tpu", "native")
+        assert not [f for f in os.listdir(pkg_native) if f.endswith(".so")]
+
+    def test_build_keyed_on_source_content(self, tmp_path, monkeypatch):
+        """An edited source builds a new library; an unchanged one (even
+        with a new mtime) reuses the existing build."""
+        monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path / "build"))
+        src = tmp_path / "hyslam_rt.cpp"
+        src.write_bytes(open(native._SRC, "rb").read())
+        lib = native.build(str(src))
+        assert os.path.exists(lib) and lib.startswith(str(tmp_path / "build"))
+        mtime = os.path.getmtime(lib)
+        os.utime(src, None)
+        assert native.build(str(src)) == lib
+        assert os.path.getmtime(lib) == mtime
+        src.write_text(src.read_text() + "\n// edited\n")
+        lib2 = native.library_path(str(src))
+        assert lib2 != lib and not os.path.exists(lib2)
+        assert native.build(str(src)) == lib2 and os.path.exists(lib2)
+        assert not [f for f in os.listdir(tmp_path / "build")
+                    if f.endswith(".tmp")]
 
 
 class TestNativeQueue:

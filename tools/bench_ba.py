@@ -1,22 +1,21 @@
-"""On-chip BA throughput + roofline estimate (BASELINE: "BA iterations/s
-at 1 chip"; VERDICT r3 #6 — previously only virtual-CPU-mesh numbers
-existed).
+"""BA throughput on one device (BASELINE: "BA iterations/s at 1 chip").
 
 Sweeps bundle_adjustment over K keyframes at L=65536 landmarks / O=8
-observation slots on the real device, for both the dense Schur path
-(materializes the [6K,6K] reduced system via rank-3C MXU chunks) and the
-matrix-free block-Jacobi PCG path, and reports measured iterations/s plus
-an analytic FLOP estimate -> achieved FLOP/s vs nominal chip peak.
+observation slots, for both the dense Schur path (materializes the
+[6K,6K] reduced system via rank-3C matmul chunks) and the matrix-free
+block-Jacobi PCG path, and reports measured iterations/s plus an analytic
+FLOP estimate -> achieved FLOP/s. Roofline shares need a peak table keyed
+by device kind, which this tool does not keep.
 
 FLOP model per LM iteration (counts multiply-adds as 2 FLOPs):
   linearize:     ~700 * L * O       (residuals, jacobians, Hpp/V/W einsums)
-  dense Schur:   216 * L * K^2      (Zf^T Zf chunk matmuls, the MXU term)
+  dense Schur:   216 * L * K^2      (Zf^T Zf chunk matmuls)
   dense solve:   (2/3) * (6K)^3     (Cholesky-class)
   CG:            n_cg * (4 * 36 * L * O + 2 * 36 * K)   (two Y-products
                  + diag precond per step; n_cg = 200 maxiter bound)
   backsub:       ~60 * L * O
 
-    python tools/bench_ba_tpu.py [out.json]
+    python tools/bench_ba.py [out.json]
 """
 
 from __future__ import annotations
@@ -28,10 +27,6 @@ import time
 sys.path.insert(0, ".")
 
 from bench_multihost import build_problem  # noqa: E402
-
-# nominal peak of one TPU v5e-lite chip for f32-accumulated MXU work;
-# the solver pins float32 precision so the bf16 peak does not apply
-PEAK_F32_FLOPS = 98.3e12 / 2   # v5e bf16 197 TF -> ~98 TF f32-pass/2 pumps
 
 
 def flops_per_iter(K: int, L: int, O: int, solver: str, n_cg: int = 200):
@@ -56,10 +51,8 @@ def run(K: int, solver: str, L=65536, O=8, n_iters=10, reps=3):
     _ = np.asarray(res.cost)                   # compile + warm (real fetch)
     t0 = time.perf_counter()
     for _ in range(reps):
-        # CHAIN the reps (each consumes the previous poses) and end with a
-        # real device->host fetch: on the proxied runtime
-        # block_until_ready returns at dispatch, not execution
-        # (PROFILE_r05.md section 1), so unchained reps measure nothing
+        # chain the reps (each consumes the previous poses) and end with a
+        # real device->host fetch, so every rep has executed
         res = bundle_adjustment(prob._replace(kf_Tcw=res.kf_Tcw),
                                 n_iters=n_iters, solver=solver)
     _ = np.asarray(res.cost)
@@ -72,7 +65,6 @@ def run(K: int, solver: str, L=65536, O=8, n_iters=10, reps=3):
         "s_per_iter": round(dt / n_iters, 4),
         "est_tflops_per_iter": round(fl / 1e12, 3),
         "achieved_tflops": round(ips * fl / 1e12, 2),
-        "pct_nominal_peak": round(100.0 * ips * fl / PEAK_F32_FLOPS, 1),
         "final_cost": float(res.cost),
     }
 
@@ -80,20 +72,26 @@ def run(K: int, solver: str, L=65536, O=8, n_iters=10, reps=3):
 def main(out_path=None):
     import jax
 
-    platform = jax.devices()[0].platform
+    dev = jax.devices()[0]
     rows = []
     for K, solver in [(64, "dense"), (256, "dense"),
                       (256, "cg"), (1024, "cg"), (2048, "cg")]:
         try:
             row = run(K, solver)
-        except Exception as e:           # record, don't hide (VERDICT r3)
+        except Exception as e:   # record it, finish the sweep, exit 1
             row = {"K": K, "solver": solver, "error": repr(e)[:300]}
         rows.append(row)
         print(json.dumps(row), flush=True)
     if out_path:
         with open(out_path, "w") as f:
-            json.dump({"platform": platform, "rows": rows}, f, indent=1)
+            json.dump({"platform": dev.platform, "kind": dev.device_kind,
+                       "rows": rows}, f, indent=1)
+    return int(any("error" in r for r in rows))
 
 
 if __name__ == "__main__":
-    main(out_path=sys.argv[1] if len(sys.argv) > 1 else None)
+    from hyslam_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+    raise SystemExit(main(out_path=sys.argv[1] if len(sys.argv) > 1
+                          else None))

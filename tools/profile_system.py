@@ -1,12 +1,10 @@
 """Per-stage decomposition of the System tracking path on the live backend.
 
-Round-4 measured system_fps = 1.41 on a real TPU chip while the fused
-front-end program alone runs at 2673 fps — ~99.9% of frame time is host
-orchestration. This tool answers WHERE it goes: dispatch latency of the
-proxied runtime, per-stage wall time (preprocess / extract / stereo /
+Host wall time per stage (preprocess / extract / stereo /
 track_normal_frame / host syncs / trajectory append / keyframe
-integration), and the number of separate device dispatches per tracked
-frame.
+integration), device dispatch latency, and the number of separate device
+dispatches per tracked frame: where a frame's time goes between the host
+and the device.
 
 Usage:  python tools/profile_system.py [--frames 40] [--json out.json]
 """
@@ -190,4 +188,7 @@ def main():
 
 
 if __name__ == "__main__":
+    from hyslam_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     main()

@@ -13,4 +13,7 @@ from hyslam_tpu.features.vocab_io import (  # noqa: F401
 )
 
 if __name__ == "__main__":
+    from hyslam_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     raise SystemExit(main())
